@@ -1,4 +1,4 @@
-"""BER-vs-SNR curve harness (BASELINE.json configs 2-3).
+"""BER-vs-SNR curve harness.
 
 Sweeps SNR points for a set of decoder configs, decodes on the current
 backend, and emits a JSON table plus an aligned text table.  The golden
@@ -99,7 +99,8 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--golden", action="store_true",
                    help="include golden numpy decoder (slow; small --num)")
-    p.add_argument("--backend", default="auto")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "xla", "cuda"])
     p.add_argument("--out", type=str, default=None)
     args = p.parse_args(argv)
 

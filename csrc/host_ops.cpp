@@ -1,4 +1,4 @@
-// Native host-side hot loops for the TPU Viterbi framework.
+// Native host-side hot loops for the Viterbi framework.
 //
 // The reference implements BER accounting as a C++ bit loop over the packed
 // decoder output (reference: src/main.cpp:151-171).  This library provides
@@ -94,7 +94,7 @@ long long quantize_pack_f32(const float* vals, long long n, float scale,
 
 // Packed channel words -> sign-extended int32 soft values (HARD bits map
 // to +-1), MSB = earliest (the host-side inverse of the packer; mirrors
-// the in-kernel word-mode unpack in decoder/core_pallas.py).
+// the decode kernel's word unpack in csrc/viterbi_hopper.cu).
 void unpack_soft_words(const int32_t* words, long long n_words, int width,
                        int32_t* out) {
     const int per_word = 32 / width;

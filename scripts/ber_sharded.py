@@ -1,8 +1,8 @@
-"""BER parity across device counts (BASELINE target: '1 chip, 1 host, and
-N>=2 hosts'): decodes the same noisy workloads through the single-device
-path and through decode_sharded on a mesh, and records both BER figures.
-On the 8-virtual-CPU backend this validates the sharded halo-exchange path
-end to end; on a pod the same script measures the real thing.
+"""BER parity across device counts: decodes the same noisy workloads
+through the single-device path and through decode_sharded on a mesh, and
+records both BER figures.  On the 8-virtual-CPU backend this validates the
+sharded halo-exchange path end to end; on several cards the same script
+measures the real thing.
 
 Writes bench/ber_sharded.json.
 """

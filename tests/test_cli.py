@@ -76,59 +76,39 @@ def test_cli_e2e_device_mode(capsys):
 
 
 def test_cli_flag_interplay(capsys):
-    """--e2e-device rejects the pipeline-only knobs instead of silently
-    ignoring them, and --generator requires --e2e-device (VERDICT r3
-    item 6)."""
+    """Knobs that only make sense in one mode are rejected elsewhere
+    instead of silently ignored: --stream-words and --out-file need
+    --decode-file, and the removed flags no longer parse."""
     base = ["-n", "40000", "-s", "15", "--seed", "5"]
-    assert cli.main(base + ["--e2e-device", "--backend", "xla"]) == -1
-    assert "--backend is not applicable" in capsys.readouterr().err
-    assert cli.main(base + ["--e2e-device", "--time-mode", "slope"]) == -1
-    assert "--time-mode is not applicable" in capsys.readouterr().err
-    assert cli.main(base + ["--generator", "xla"]) == -1
-    assert "--generator requires --e2e-device" in capsys.readouterr().err
+    assert cli.main(base + ["--stream-words", "2048"]) == -1
+    assert "--stream-words requires --decode-file" in \
+        capsys.readouterr().err
+    assert cli.main(base + ["--out-file", "x.dec"]) == -1
+    assert "--out-file requires --decode-file" in capsys.readouterr().err
+    for flag in (["--time-mode", "slope"], ["--generator", "xla"],
+                 ["--survivor", "window"], ["--backend", "pallas"]):
+        with pytest.raises(SystemExit):
+            cli.main(base + flag)
+    capsys.readouterr()
 
 
-def test_cli_window_survivor_rejected_off_tpu(capsys):
-    """An explicit --survivor window the resolved core cannot honor fails
-    loudly instead of silently decoding full-store (VERDICT r4 item 4):
-    --backend xla is rejected up front; backend auto off-TPU resolves to
-    the XLA fallback and is rejected at build time with the same Error
-    line (no traceback)."""
-    base = ["-n", "40000", "-s", "15", "--seed", "5"]
-    assert cli.main(base + ["--survivor", "window",
-                            "--backend", "xla"]) == -1
-    assert "--survivor window requires" in capsys.readouterr().err
-    assert cli.main(base + ["--survivor", "window"]) == -1
+def test_cli_cuda_backend_rejected_off_gpu(capsys):
+    """--backend cuda without a GPU fails with a one-line error, on the
+    pipeline, the file-serving and the --e2e-device paths alike."""
+    base = ["-n", "40000", "-s", "15", "--seed", "5", "--backend", "cuda"]
+    assert cli.main(base) == -1
     err = capsys.readouterr().err
-    assert err.startswith("Error: survivor='window' requires"), err
-    # --e2e-device path rejects too (build_sharded_decoder raise)
-    assert cli.main(base + ["--e2e-device", "--survivor", "window"]) == -1
-    assert "survivor='window' requires" in capsys.readouterr().err
+    assert err.startswith("Error: backend 'cuda' needs a GPU"), err
+    assert cli.main(base + ["--e2e-device"]) == -1
+    assert "needs a GPU" in capsys.readouterr().err
 
 
-def test_api_window_survivor_rejected_off_tpu():
-    """ViterbiTPU(survivor='window') on an XLA-core resolution raises at
-    build time (api.py loud rejection) — and 'auto'/'full' still work."""
-    from tpu_viterbi.config import ChannelIn, DecoderConfig
-    from tpu_viterbi.decoder.api import ViterbiTPU
-
-    cfg = DecoderConfig(channel_in=ChannelIn.SOFT8)
-    with pytest.raises(ValueError, match="survivor='window'"):
-        ViterbiTPU(cfg, dec_len=256, survivor="window")._build(20000)
-    with pytest.raises(ValueError, match="survivor='window'"):
-        ViterbiTPU(cfg, dec_len=256, survivor="window",
-                   backend="xla")._build(20000)
-    # interpret backend honors the request instead
-    fn, plan, _ = ViterbiTPU(cfg, dec_len=256, survivor="window",
-                             backend="pallas-interpret")._build(20000)
-    assert fn is not None
-    ViterbiTPU(cfg, dec_len=256, survivor="auto")._build(20000)
-
-
-def test_cli_e2e_device_generator_explicit(capsys):
-    """--generator is plumbed through to build_sharded_simulation."""
-    rc = cli.main(["-n", "40000", "-s", "15", "-i", "s8", "--seed", "5",
-                   "--e2e-device", "--generator", "xla"])
-    out = capsys.readouterr().out
-    assert rc == 0
-    assert "BEN: 0" in out
+def test_cli_verbose_reports_decode_core(capsys):
+    """-v names the decode core that ran (the XLA core on the CPU), on
+    the pipeline and the --e2e-device paths."""
+    base = ["-n", "20000", "-s", "15", "-i", "s8", "--seed", "5", "-v",
+            "--dec-len", "512"]
+    assert cli.main(base) == 0
+    assert "Decode core: xla" in capsys.readouterr().out
+    assert cli.main(base + ["--e2e-device"]) == 0
+    assert "(decode core: xla)" in capsys.readouterr().out

@@ -134,8 +134,6 @@ def test_stream_words_flag_validation(tmp_path):
     f = str(tmp_path / "x.bin")
     np.zeros(4096, np.int32).tofile(f)
     assert cli.main(["--decode-file", f, "--stream-words", "1000"]) == -1
-    assert cli.main(["--decode-file", f, "--stream-words", "2048",
-                     "--time-mode", "slope"]) == -1
     assert cli.main(["-n", "20000", "--stream-words", "2048"]) == -1
 
 

@@ -127,3 +127,32 @@ def test_every_valid_config_decodes():
         out = np.asarray(decode_packed_xla(packed, cfg, plan))
         got = unpack_msb_first(out, cfg.bits_per_pack)[:m]
         assert np.array_equal(got, bits[cfg.extra_l: cfg.extra_l + m]), cfg
+
+
+def test_compile_cache_dir_follows_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins; otherwise the fixed <repo>/.jax_cache."""
+    import jax
+
+    from tpu_viterbi.utils import cache
+
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        assert cache.enable_compile_cache() == cache.CACHE_DIR
+        assert cache.CACHE_DIR.endswith(".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_require_gpu_refuses_the_cpu():
+    """Measurement entry points (bench.py, chip_smoke.py) fail without a
+    GPU instead of timing the CPU."""
+    import pytest
+
+    from tpu_viterbi.utils.device import require_gpu
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        require_gpu()

@@ -1,8 +1,7 @@
-"""Word-granular Pallas staging must produce exactly the same
-(n_packs, bpp, 2, b_pad) stage tensor as the soft-value staging path, for
-every channel type and for the left-shifted-last-block case.  Both layouts
-are pure XLA and run on the CPU backend; the Pallas kernel they feed is
-covered by the TPU parity scripts."""
+"""Word-granular staging (core_xla.stage_layout_packed) must produce
+exactly the same (n_packs, bpp, 2, b_pad) stage tensor as soft-value
+staging, for every channel type and for the natural last block.  Both
+layouts are pure XLA and run on the CPU backend."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,9 +9,21 @@ import pytest
 
 from tpu_viterbi.chain.quantize import quantize_and_pack, unpack_to_soft
 from tpu_viterbi.config import ChannelIn, DecodeOut, DecoderConfig
-from tpu_viterbi.decoder.core_pallas import (_stage_layout,
-                                             _stage_layout_packed)
-from tpu_viterbi.decoder.core_xla import plan_blocks
+from tpu_viterbi.decoder.core_xla import (overlapped_windows, plan_blocks,
+                                          stage_layout_packed)
+
+
+def _stage_layout(r, plan, b_pad):
+    """Reference soft-value staging: global (S, 2) soft stages ->
+    (n_packs, bpp, 2, b_pad), the last block's tail reading the
+    zero-padded stream."""
+    dl, L, B = plan.dec_len, plan.block_len, plan.num_blocks
+    blocks = overlapped_windows(r, dl, L, B)            # (B, L, 2)
+    if b_pad > B:
+        pad = jnp.zeros((b_pad - B, L, 2), r.dtype)
+        blocks = jnp.concatenate([blocks, pad], axis=0)
+    return blocks.transpose(1, 2, 0).reshape(plan.n_packs,
+                                             plan.bits_per_pack, 2, b_pad)
 
 
 CHANNELS = [ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8,
@@ -38,7 +49,7 @@ def test_packed_staging_matches_soft_staging(rng, channel, message_len,
 
     ref = _stage_layout(
         r.astype(jnp.float32 if is_float else jnp.int32), plan, b_pad)
-    got = _stage_layout_packed(
+    got = stage_layout_packed(
         packed.astype(jnp.float32 if is_float else jnp.int32),
         cfg, plan, b_pad)
 
@@ -121,19 +132,18 @@ def test_packed_staging_b16_packs(rng):
     r = soft[: 2 * (message_len + 64)].reshape(message_len + 64, 2)
     b_pad = 8
     ref = _stage_layout(r.astype(jnp.int32), plan, b_pad)
-    got = _stage_layout_packed(packed.astype(jnp.int32), cfg, plan, b_pad)
+    got = stage_layout_packed(packed.astype(jnp.int32), cfg, plan, b_pad)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 @pytest.mark.parametrize("channel", [ChannelIn.HARD, ChannelIn.SOFT4,
                                      ChannelIn.SOFT8, ChannelIn.SOFT16])
 def test_stage_words_matches_kernel_unpack_contract(rng, channel):
-    """The Pallas kernel's word-mode unpack (core_pallas._viterbi_kernel:
+    """The CUDA kernel's word unpack (csrc/viterbi_hopper.cu Field::get:
     value v of word w is bits [32-(v+1)*width, 32-v*width), stage s uses
     values (2s, 2s+1) of word s // (dpp/2)) must reproduce exactly the
     sign-extended values the value-mode staging produces."""
-    from tpu_viterbi.decoder.core_xla import plan_blocks, stage_words
-    from tpu_viterbi.decoder.core_pallas import _stage_layout_packed
+    from tpu_viterbi.decoder.core_xla import stage_words
 
     cfg = DecoderConfig(channel_in=channel)
     message_len, dec_len = 512, 128
@@ -144,7 +154,7 @@ def test_stage_words_matches_kernel_unpack_contract(rng, channel):
                         .astype(np.int32))
     b_pad = 8
 
-    ref = np.asarray(_stage_layout_packed(words, cfg, plan, b_pad))
+    ref = np.asarray(stage_layout_packed(words, cfg, plan, b_pad))
     wt = np.asarray(stage_words(words, cfg, plan, b_pad))
     rs = wt.reshape(plan.n_packs, -1, b_pad)      # (n_packs, wpp, b_pad)
 

@@ -191,3 +191,26 @@ def test_ingraph_simulation_fp32_channel():
     ben, _ = simulate_sharded(cfg, 8 * 1024, mesh, snr_db=math.inf,
                               seed=2, dec_len=256)
     assert ben == 0
+
+
+@pytest.mark.parametrize("channel,decode_out", [
+    (ChannelIn.SOFT8, "O_B32"), (ChannelIn.FP32, "O_B32"),
+    (ChannelIn.HARD, "O_B16")])
+def test_sharded_matches_shard_reference(channel, decode_out):
+    """decode_sharded equals shard_reference — each shard plus its
+    neighbour's halo decoded alone on one device — bit for bit, on noisy
+    input, wraparound tail included: the comparison chip_smoke.py makes on
+    four cards."""
+    from tpu_viterbi.config import DecodeOut
+    from tpu_viterbi.sharding.blocks import shard_reference
+
+    n = 8 * 1024
+    cfg = DecoderConfig(channel_in=channel, decode_out=DecodeOut[decode_out])
+    scale = {ChannelIn.SOFT8: 32.0, ChannelIn.FP32: 4.0,
+             ChannelIn.HARD: 1.0}[channel]
+    _, packed = _workload(n, 0.8, seed=5, channel=channel, scale=scale)
+    mesh = make_block_mesh(jax.devices()[:8])
+    out, m = decode_sharded(packed, 2 * n, cfg, mesh, dec_len=256)
+    ref = shard_reference(packed, cfg, 8, 256)
+    assert out.dtype == ref.dtype
+    assert np.array_equal(out, ref[:out.shape[0]])

@@ -1,4 +1,4 @@
-"""Trellis-table tests: consistency between the TPU state convention and the
+"""Trellis-table tests: consistency between the state convention and the
 reference's shift-register encoder (reference: src/viterbiDF.h:43-62)."""
 
 import numpy as np

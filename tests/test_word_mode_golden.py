@@ -1,10 +1,9 @@
-"""Interpret-mode golden coverage for the PRODUCTION packed-input Pallas
-path (VERDICT r1 item 6): decode_packed_pallas — in-kernel word unpack
-(word mode) plus the fused block-major staging transpose — checked directly
-against the golden full-history oracle for every channel type and both
-output pack widths, entirely in CI (no TPU).  Before this test the
-word-mode-vs-golden link closed only via on-hardware scripts
-(scripts/check_word_mode.py); now a broken unpack/staging fails CI.
+"""Golden coverage of the packed-input production entry: decode_packed_xla
+— word-granular staging and unpack — checked directly against the golden
+full-history oracle for every channel type and both output pack widths,
+with a natural (partial) last block.  The Hopper kernel is held to
+decode_packed_xla bit for bit (tests/test_cuda_kernel.py on the CPU,
+chip_smoke.py on the card), so this closes the kernel-vs-golden link too.
 
 Reference contract being locked: traceback/output packing viterbiTB.cuh:
 4-21 and MSB-first input packing viterbiDF.h:157-163.
@@ -16,37 +15,9 @@ import pytest
 
 from tpu_viterbi.chain.quantize import unpack_to_soft_np
 from tpu_viterbi.config import ChannelIn, DecodeOut, DecoderConfig
-from tpu_viterbi.decoder.core_pallas import decode_packed_pallas
-from tpu_viterbi.decoder.core_xla import plan_blocks
+from tpu_viterbi.decoder.core_xla import decode_packed_xla, plan_blocks
 from tpu_viterbi.decoder.golden import golden_decode_block
 from tpu_viterbi.utils.bits import unpack_msb_first
-
-# slow-tier split (each case is an interpret compile, 13-29 s): the fast
-# tier keeps the fused-staging golden check for the three widest-coverage
-# channels at O_B32 (SOFT8 headline, SOFT16 double-width words, FP32 u/d
-# mode); HARD/SOFT4 and the O_B16 output rows run with --full (O_B16 vs
-# golden stays fast via test_kernel_interpret + test_fused_staging)
-CHANNELS = [pytest.param(ChannelIn.HARD, marks=pytest.mark.slow,
-                         id="HARD"),
-            pytest.param(ChannelIn.SOFT4, marks=pytest.mark.slow,
-                         id="SOFT4"),
-            pytest.param(ChannelIn.SOFT8, id="SOFT8"),
-            pytest.param(ChannelIn.SOFT16, id="SOFT16"),
-            pytest.param(ChannelIn.FP32, id="FP32")]
-OUTS = [pytest.param(DecodeOut.O_B32, id="O_B32"),
-        pytest.param(DecodeOut.O_B16, marks=pytest.mark.slow, id="O_B16")]
-
-
-@pytest.fixture(autouse=True)
-def _fresh_compiler_state():
-    """The interpret-mode kernels compile to very large CPU HLO graphs;
-    with ~160 tests' worth of live executables in the process the XLA CPU
-    compiler has been observed to SEGFAULT compiling them (full-suite runs
-    died at [SOFT8-O_B32] while solo runs pass).  Dropping the jit caches
-    before each case keeps the compiler inside its happy zone."""
-    import jax
-    jax.clear_caches()
-    yield
 
 
 def _random_words(rng, cfg, n_vals):
@@ -79,12 +50,12 @@ def _check_against_golden(bits, r, plan, ctx, hard=False):
             f"{ctx} block={k} off={off}")
 
 
-@pytest.mark.parametrize("decode_out", OUTS, ids=lambda o: o.name)
-@pytest.mark.parametrize("channel", CHANNELS, ids=lambda c: c.name)
-def test_packed_pallas_interpret_matches_golden(rng, channel, decode_out):
-    """Production entry (fused staging + in-kernel unpack) vs golden,
-    with a partial (natural-framed) last block (message_len not a
-    dec_len multiple)."""
+@pytest.mark.parametrize("decode_out", list(DecodeOut),
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("channel", list(ChannelIn), ids=lambda c: c.name)
+def test_packed_xla_matches_golden(rng, channel, decode_out):
+    """Production entry (word staging + unpack) vs golden, with a partial
+    (natural-framed) last block (message_len not a dec_len multiple)."""
     cfg = DecoderConfig(channel_in=channel, decode_out=decode_out)
     bpp = cfg.bits_per_pack
     dec_len = 3 * bpp
@@ -94,60 +65,9 @@ def test_packed_pallas_interpret_matches_golden(rng, channel, decode_out):
     n_vals = 2 * (message_len + 64)
     words = _random_words(rng, cfg, n_vals)
 
-    out = np.asarray(decode_packed_pallas(jnp.asarray(words), cfg, plan,
-                                          interpret=True))
+    out = np.asarray(decode_packed_xla(jnp.asarray(words), cfg, plan))
     bits = unpack_msb_first(out, bpp)
     r = _golden_soft(words, cfg, n_vals)
     _check_against_golden(bits, r, plan,
-                          f"{channel.name}/{decode_out.name}/fused",
+                          f"{channel.name}/{decode_out.name}",
                           hard=channel == ChannelIn.HARD)
-
-
-@pytest.mark.slow   # fused=False is the A/B staging path, not production
-@pytest.mark.parametrize("channel", [ChannelIn.HARD, ChannelIn.SOFT4,
-                                     ChannelIn.SOFT8, ChannelIn.SOFT16],
-                         ids=lambda c: c.name)
-def test_packed_pallas_unfused_interpret_matches_golden(rng, channel):
-    """fused=False A/B path (separate stage_words_pallas transpose pass)
-    must also hit golden — it shares the kernel but not the staging."""
-    cfg = DecoderConfig(channel_in=channel)
-    bpp = cfg.bits_per_pack
-    dec_len, message_len = 2 * bpp, 6 * bpp
-    plan = plan_blocks(message_len, bpp, dec_len)
-    n_vals = 2 * (message_len + 64)
-    words = _random_words(rng, cfg, n_vals)
-
-    out = np.asarray(decode_packed_pallas(jnp.asarray(words), cfg, plan,
-                                          fused=False, interpret=True))
-    bits = unpack_msb_first(out, bpp)
-    r = _golden_soft(words, cfg, n_vals)
-    _check_against_golden(bits, r, plan, f"{channel.name}/unfused",
-                          hard=channel == ChannelIn.HARD)
-
-
-@pytest.mark.slow   # FP32 u/d-vs-value equality also runs on-chip via
-                    # scripts/check_pack_exact.py (battery)
-def test_fp32_ud_matches_value(rng):
-    """FP32 u/d word mode (pre-trunc'd integer staging,
-    core_xla.fp32_ud_words) must be BIT-identical to the two-stream float
-    value kernel and to the XLA core on fractional inputs — the
-    trunc-before-sign equivalence (trunc is odd: trunc(-x) = -trunc(x))
-    that lets FP32 ride the SOFT8-cost word mode."""
-    from tpu_viterbi.decoder.core_xla import decode_packed_xla
-
-    cfg = DecoderConfig(channel_in=ChannelIn.FP32)
-    bpp = cfg.bits_per_pack
-    dec_len = 3 * bpp
-    message_len = 7 * bpp
-    plan = plan_blocks(message_len, bpp, dec_len)
-    n_vals = 2 * (message_len + 64)
-    # fractional, beyond-clamp values: exercises clamp AND trunc placement
-    vals = (rng.standard_normal(n_vals) * 6.0).astype(np.float32)
-
-    ud = np.asarray(decode_packed_pallas(jnp.asarray(vals), cfg, plan,
-                                         interpret=True, fp32_words=True))
-    val = np.asarray(decode_packed_pallas(jnp.asarray(vals), cfg, plan,
-                                          interpret=True, fp32_words=False))
-    xla = np.asarray(decode_packed_xla(jnp.asarray(vals), cfg, plan))
-    assert np.array_equal(ud, val)
-    assert np.array_equal(ud, xla)

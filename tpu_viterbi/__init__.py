@@ -1,21 +1,19 @@
-"""tpu_viterbi — TPU-native Viterbi decoding framework.
+"""tpu_viterbi — block-parallel Viterbi decoding framework in JAX.
 
-A from-scratch JAX/Pallas rebuild of the capabilities of the reference CUDA
+A from-scratch JAX rebuild of the capabilities of the reference CUDA
 project (alireza-md93/GPU-Accelerated-Viterbi-Decoder): the K=7 rate-1/2
 convolutional code SDR chain (bit source -> encoder -> AWGN -> quantize/pack
--> decode -> BER), a block-parallel fused BM+ACS+register-exchange decoder,
-and multi-chip scaling over a jax.sharding mesh.
+-> decode -> BER), a block-parallel fused BM+ACS+register-exchange decoder
+(a CUDA kernel for Hopper GPUs, called through jax.ffi, with a plain XLA
+core beside it), and multi-card scaling over a jax.sharding mesh.
 """
 
 import jax as _jax
 
-# The legacy (non-partitionable) threefry lowering compiles pathologically
-# on TPU backends at production sizes — measured 60-350 s server-side
-# compile for one 32M-element draw vs 1.7 s with the partitionable
-# lowering (same statistical quality).  Partitionable keys are also what
-# makes sharded in-graph workload generation possible (each mesh device
-# computes its slice of the stream independently, no gather), which the
-# multi-host chain relies on (sharding/, scripts/pod_decode_example.py).
+# Partitionable threefry keys make sharded in-graph workload generation
+# possible: each mesh device computes its slice of the random stream
+# independently, with no gather, and the slices equal a single-device draw
+# (sharding/simulate.py, scripts/multihost_decode_example.py).
 _jax.config.update("jax_threefry_partitionable", True)
 
 from .config import (ChannelIn, CompMode, DecodeOut, DecoderConfig, Metric,

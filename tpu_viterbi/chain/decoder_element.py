@@ -12,11 +12,9 @@ from .pipeline import ComputeElement
 
 class ViterbiDecoder(ComputeElement):
     def __init__(self, config: DecoderConfig = DecoderConfig(),
-                 dec_len: int = DEFAULT_DEC_LEN, backend: str = "auto",
-                 time_mode: str = "wall", survivor: str = "auto"):
+                 dec_len: int = DEFAULT_DEC_LEN, backend: str = "auto"):
         super().__init__()
-        self.viterbi = ViterbiTPU(config, dec_len=dec_len, backend=backend,
-                                  time_mode=time_mode, survivor=survivor)
+        self.viterbi = ViterbiTPU(config, dec_len=dec_len, backend=backend)
         self.config = config
 
     def process(self, packed):

@@ -6,7 +6,7 @@ parity outputs per input bit from XOR-popcount of `buffer & poly{1,2}`, coded
 output interleaved [out0, out1] per stage with poly 0o171 first, and the
 register starting at zero (bits before t=0 are 0).
 
-TPU-native formulation: out_k[t] = XOR over tap offsets d of bit[t-d], which
+Vectorized formulation: out_k[t] = XOR over tap offsets d of bit[t-d], which
 we compute with shifted views of the zero-padded bit array — one vector XOR
 per polynomial tap, O(K) vector ops total for the whole message.
 """
@@ -31,12 +31,8 @@ _TAPS1 = _tap_offsets(POLY2)
 
 def conv_encode_streams(bits: jnp.ndarray):
     """Encode (n,) {0,1} bits -> two (n,) parity streams (out0, out1),
-    NOT interleaved.  This is the layout-friendly form for TPU: both
-    streams stay flat, whereas materializing the interleaved (n, 2) pair
-    array pads the minor dim 2 -> 128 lanes under TPU tiling (64x memory
-    blowup — 131 GB at 256M bits; see chain/workload.py which packs the
-    streams into interleaved words without ever forming the value
-    stream)."""
+    NOT interleaved.  Both streams stay flat; chain/workload.py packs
+    them into interleaved words without ever forming the value stream."""
     bits = bits.astype(jnp.uint8)
     n = bits.shape[0]
     padded = jnp.pad(bits, (CONST_LEN - 1, 0))  # bits[t-d] with zeros for t<d

@@ -1,14 +1,14 @@
 """Dataflow micro-framework: elements chained with ``|``, per-element timing,
 probing of intermediate outputs, and a printable status map.
 
-TPU-native rebuild of the reference's C++ dataflow layer
+JAX rebuild of the reference's C++ dataflow layer
 (reference: src/dataflow/dataflow.h:16-133).  Semantics kept:
   - an element's ``process(data)`` receives the previous element's output
     (None for the first element, which generates its own data);
   - ``probe()`` marks an element so its output is captured in the result;
   - ``Pipeline.run`` wall-clocks every element into an "Elapsed run time"
     status entry and returns (final_output, probed_outputs).
-Device-side semantics added for TPU: timing uses jax.block_until_ready so an
+Device-side semantics added: timing uses jax.block_until_ready so an
 element's async dispatch does not get billed to its successor.
 """
 

@@ -4,13 +4,13 @@ The decomposition is the reference's time-block scheme (SURVEY.md §5
 "long-context") lifted one level: the coded stage stream is sharded along
 the 'blocks' mesh axis; each device decodes exactly the output bits whose
 stages live in its shard, and fetches the extra_l+extra_r = 64-stage right
-halo from its neighbor with a single `ppermute` edge exchange over ICI
-(replacing nothing in the reference — it has no multi-device story).
+halo from its neighbor with a single `ppermute` edge exchange (replacing
+nothing in the reference — it has no multi-device story).
 
-Within a device the usual block batch runs (decoder/core_xla.py); across
-devices no further communication is needed (overlap-save blocks are
-independent), so scaling is embarrassingly parallel after one tiny halo
-exchange — laid out to ride ICI, never DCN-wide collectives.
+Within a device the usual block batch runs (the decode core api.py
+resolves); across devices no further communication is needed (overlap-save
+blocks are independent), so scaling is embarrassingly parallel after one
+tiny halo exchange.
 """
 
 from __future__ import annotations
@@ -23,49 +23,22 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
+from ..config import ChannelIn, DecoderConfig
+from ..decoder.api import DEFAULT_DEC_LEN, decode_core, resolve_backend
 from ..decoder.core_xla import WARMUP, decode_packed_xla, plan_blocks
 from .mesh import BLOCK_AXIS
 
 
 def sharded_stage_count(total_stages: int, num_devices: int,
-                        bits_per_pack: int, align: int = 0,
-                        max_pad_num: int = 32) -> int:
+                        bits_per_pack: int) -> int:
     """Stages per device: total padded up so each shard is a whole number of
-    packs and of packed input words for every channel type (lcm 32).
-
-    align: additionally round the shard up to this stage multiple when the
-    global padding stays under total/max_pad_num — used to hit the
-    zero-copy aligned decode path (shard blocks a lane_tile multiple, see
-    build_sharded_decoder)."""
+    packs and of packed input words for every channel type (lcm 32)."""
     per = -(-total_stages // num_devices)
-    per = -(-per // 32) * 32
-    if align:
-        per_a = -(-per // align) * align
-        if per_a * num_devices <= total_stages + total_stages // max_pad_num:
-            per = per_a
-    return per
-
-
-def zero_copy_align_stages(cfg: DecoderConfig, dec_len: int) -> int:
-    """The stage multiple that makes a shard a whole number of lane-tile
-    blocks under plan_blocks' bpp-trimmed dec_len — i.e. exactly the
-    `sd % (LANE_TILE * plan.dec_len) == 0` gate of the zero-copy aligned
-    decode path in build_sharded_decoder.  The ONE place the alignment
-    rule lives; decode_sharded and build_sharded_simulation both feed it
-    to sharded_stage_count(align=...)."""
-    bpp = cfg.bits_per_pack
-    dl = max(bpp, dec_len - dec_len % bpp)
-    try:                       # the very factor the gate divides by
-        from ..decoder.core_pallas import LANE_TILE as lane_tile
-    except ImportError:        # no pallas -> gate never taken; 128 is fine
-        lane_tile = 128
-    return lane_tile * dl
+    return -(-per // 32) * 32
 
 
 def build_sharded_decoder(cfg: DecoderConfig, stages_per_device: int,
-                          mesh, dec_len: int = 2048,
-                          survivor: str = "auto",
+                          mesh, dec_len: int = DEFAULT_DEC_LEN,
                           backend: str = "auto"):
     """Returns (jitted decode, plan, local_words, info) for a
     globally-sharded packed input.
@@ -78,101 +51,30 @@ def build_sharded_decoder(cfg: DecoderConfig, stages_per_device: int,
             consumed the wraparound halo of device 0) must be discarded by
             the caller.
 
-    backend: 'auto' | 'xla' | 'pallas' | 'pallas-interpret' — same knob as
-    ViterbiTPU (api.py).  'pallas-interpret' runs the production Pallas
-    kernel (including the zero-copy aligned tail_halo branch) in interpret
-    mode on any backend, which is how the multi-device aligned path gets
-    N>1 CI coverage without TPU pod hardware (VERDICT r4 item 1).
-
-    info: {'backend': resolved core, 'aligned': bool, 'window': bool} —
-    'aligned' True means the shard stream enters the kernel as a pure
-    bitcast body with the ppermute'd neighbor halo riding the tile-edge
-    input (ZERO copies of the shard stream).
+    backend: 'auto' | 'xla' | 'cuda' — same knob as ViterbiTPU
+    (api.resolve_backend); info = {'backend': the resolved core}.
     """
     num_devices = mesh.shape[BLOCK_AXIS]
     sd = stages_per_device
     if sd % 32:
         raise ValueError("stages_per_device must be a multiple of 32")
     local_words = sd * 2 // cfg.enc_data_per_pack
-    if dec_len == "auto":    # per-shard lane-tile fill (core_xla.auto_dec_len)
+    if dec_len == "auto":    # per-shard block-count fill (auto_dec_len)
         from ..decoder.core_xla import auto_dec_len
         dec_len = auto_dec_len(sd, cfg.bits_per_pack)
     plan = plan_blocks(sd, cfg.bits_per_pack, dec_len)
     perm = [((d + 1) % num_devices, d) for d in range(num_devices)]
-
-    if survivor not in ("auto", "full", "window"):
-        raise ValueError(f"survivor must be 'auto', 'full' or 'window', "
-                         f"got {survivor!r}")
-    if backend not in ("auto", "xla", "pallas", "pallas-interpret"):
-        raise ValueError(f"backend must be 'auto', 'xla', 'pallas' or "
-                         f"'pallas-interpret', got {backend!r}")
-    interp = backend == "pallas-interpret"
-    win = False
-    use_pallas = False
-    if backend != "xla":
-        try:
-            from ..decoder.core_pallas import (LANE_TILE,
-                                               decode_packed_pallas,
-                                               padded_input_words,
-                                               pallas_supported,
-                                               resolve_window)
-            win = resolve_window(survivor, cfg, plan)
-            use_pallas = interp or pallas_supported(cfg, plan, window=win)
-            if backend == "pallas" and not use_pallas:
-                raise ConfigResolutionError(
-                    "pallas backend requested but unsupported "
-                    f"for config={cfg} plan={plan}")
-        except ImportError:
-            if backend in ("pallas", "pallas-interpret"):
-                raise
-    if survivor == "window" and not use_pallas:
-        # same loud rejection as ViterbiTPU (api.py): the one-pointer
-        # circular buffer lives in the Pallas kernel; an explicit window
-        # request the XLA fallback cannot honor must not silently decode
-        # full-store (VERDICT r4 item 4)
-        raise ConfigResolutionError(
-            "survivor='window' requires the Pallas kernel path, but this "
-            f"sharded decode resolves to the XLA core (backend="
-            f"{backend!r}); run on TPU, use backend='pallas-interpret', "
-            "or use survivor='auto'")
+    core = resolve_backend(backend)
+    decode = decode_core(core)
 
     # halo exchanged at packed-word granularity (the wire format): the
     # first 64 coded stages of the right neighbor, one tiny ppermute edge
     dpp = 1 if cfg.channel_in == ChannelIn.FP32 else cfg.enc_data_per_pack
     halo_words = 2 * WARMUP // dpp
 
-    # Zero-copy aligned path: when the shard's block count is a lane_tile
-    # multiple (sd % (128 * dec_len) == 0, see sharded_stage_count's
-    # align knob) the local stream IS the kernel's bitcast body and the
-    # ppermute'd neighbor halo rides the tile-edge side input
-    # (decode_packed_pallas tail_halo) — ZERO copies of the shard stream.
-    # Otherwise one concat builds the decoder's full input (local stream +
-    # halo + staging pad) — folding the pad in here keeps it to a single
-    # copy instead of a second pad-concat inside decode_packed_pallas.
-    aligned = (use_pallas and cfg.channel_in != ChannelIn.FP32
-               and plan.dec_len >= 64
-               and sd % (LANE_TILE * plan.dec_len) == 0)
-    pad_words = 0
-    if use_pallas and cfg.channel_in != ChannelIn.FP32 and not aligned:
-        pad_words = max(0, padded_input_words(cfg, plan)
-                        - (local_words + halo_words))
-
     def local_decode(words_local):
         halo = jax.lax.ppermute(words_local[:halo_words], BLOCK_AXIS, perm)
-        if aligned:
-            return decode_packed_pallas(words_local, cfg, plan,
-                                        window=win, tail_halo=halo,
-                                        interpret=interp)
-        parts = [words_local, halo]
-        if pad_words:
-            parts.append(jnp.zeros((pad_words,), words_local.dtype))
-        words_full = jnp.concatenate(parts)
-        # word-granular staging end to end on both backends (no lane-padded
-        # soft intermediates — see core_xla.stage_layout_packed)
-        if use_pallas:
-            return decode_packed_pallas(words_full, cfg, plan, window=win,
-                                        interpret=interp)
-        return decode_packed_xla(words_full, cfg, plan)
+        return decode(jnp.concatenate([words_local, halo]), cfg, plan)
 
     # check_vma=False: the decoder's zero-initialized scan carries are
     # unvarying over the mesh axis by construction; axis-varying inference
@@ -180,15 +82,11 @@ def build_sharded_decoder(cfg: DecoderConfig, stages_per_device: int,
     fn = shard_map(local_decode, mesh=mesh,
                    in_specs=P(BLOCK_AXIS), out_specs=P(BLOCK_AXIS),
                    check_vma=False)
-    info = {"backend": ("pallas-interpret" if interp and use_pallas else
-                        "pallas" if use_pallas else "xla"),
-            "aligned": aligned, "window": win}
-    return jax.jit(fn), plan, local_words, info
+    return jax.jit(fn), plan, local_words, {"backend": core}
 
 
 def decode_sharded(packed_global, input_num: int, cfg: DecoderConfig,
-                   mesh, dec_len: int = 2048,
-                   survivor: str = "auto",
+                   mesh, dec_len: int = DEFAULT_DEC_LEN,
                    backend: str = "auto") -> Tuple[np.ndarray, int]:
     """Convenience end-to-end sharded decode.
 
@@ -196,14 +94,7 @@ def decode_sharded(packed_global, input_num: int, cfg: DecoderConfig,
     (packed_output_words, message_len)."""
     num_devices = mesh.shape[BLOCK_AXIS]
     total_stages = input_num // 2
-    if dec_len == "auto":    # resolve against the unaligned shard size
-        from ..decoder.core_xla import auto_dec_len
-        dec_len = auto_dec_len(
-            sharded_stage_count(total_stages, num_devices,
-                                cfg.bits_per_pack), cfg.bits_per_pack)
-    # align to lane_tile*dec_len blocks when cheap -> zero-copy decode path
-    sd = sharded_stage_count(total_stages, num_devices, cfg.bits_per_pack,
-                             align=zero_copy_align_stages(cfg, dec_len))
+    sd = sharded_stage_count(total_stages, num_devices, cfg.bits_per_pack)
     padded_stages = sd * num_devices
     words_needed = padded_stages * 2 // cfg.enc_data_per_pack
 
@@ -218,17 +109,41 @@ def decode_sharded(packed_global, input_num: int, cfg: DecoderConfig,
         arr = arr[:words_needed]
 
     fn, _, _, _ = build_sharded_decoder(cfg, sd, mesh, dec_len,
-                                        survivor=survivor, backend=backend)
+                                        backend=backend)
     # device_put of the host array onto the (possibly multi-process) mesh:
     # each process materializes only its addressable shards
     x = jax.device_put(arr, NamedSharding(mesh, P(BLOCK_AXIS)))
     out = jax.block_until_ready(fn(x))
     if jax.process_count() > 1:
-        # the output spans non-addressable devices; gather over DCN so every
-        # process returns the full decoded stream (pod path, SURVEY §2.3 P7)
+        # the output spans non-addressable devices; gather so every
+        # process returns the full decoded stream (SURVEY §2.3 P7)
         from jax.experimental import multihost_utils
         out = multihost_utils.process_allgather(out, tiled=True)
     out = np.asarray(out)
 
     message_len = cfg.get_message_len(input_num)
     return out[: message_len // cfg.bits_per_pack], message_len
+
+
+def shard_reference(packed_global, cfg: DecoderConfig, num_devices: int,
+                    dec_len: int) -> np.ndarray:
+    """What decode_sharded must return, computed shard by shard on one
+    device with the XLA core: each shard's words plus the first halo
+    words of the next shard (wrapping around, as the ppermute does),
+    decoded under the shard's own plan.  Returns all num_devices * sd
+    output bits' words; decode_sharded keeps the first message_len."""
+    words = np.asarray(packed_global)
+    dpp = cfg.enc_data_per_pack
+    total_stages = words.shape[0] * dpp // 2
+    sd = sharded_stage_count(total_stages, num_devices, cfg.bits_per_pack)
+    local = sd * 2 // dpp
+    words = np.pad(words, (0, max(0, local * num_devices - words.shape[0])))
+    halo = 2 * WARMUP // dpp
+    plan = plan_blocks(sd, cfg.bits_per_pack, dec_len)
+    outs = []
+    for d in range(num_devices):
+        nxt = ((d + 1) % num_devices) * local
+        x = np.concatenate([words[d * local:(d + 1) * local],
+                            words[nxt:nxt + halo]])
+        outs.append(np.asarray(decode_packed_xla(jnp.asarray(x), cfg, plan)))
+    return np.concatenate(outs)

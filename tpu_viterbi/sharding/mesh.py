@@ -2,9 +2,8 @@
 
 The reference is single-process single-GPU (cudaSetDevice(0),
 src/viterbi/viterbi.cu:134) with no distributed layer; this module is the
-new capability required by the TPU build (SURVEY.md §2.3 P7): time-blocks of
-the coded stream are sharded over a 1-D "blocks" mesh axis spanning all
-chips (ICI) and hosts (DCN).
+new capability (SURVEY.md §2.3 P7): time-blocks of the coded stream are
+sharded over a 1-D "blocks" mesh axis spanning all cards and hosts.
 """
 
 from __future__ import annotations

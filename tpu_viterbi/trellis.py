@@ -2,22 +2,21 @@
 
 The reference derives per-lane branch-metric index streams with warp bit
 tricks at kernel start (reference: src/viterbi/viterbiBM.cuh:189-207,
-`bmIndCalc`).  On TPU we precompute plain numpy tables once at trace time and
-bake them into the compiled program as constants — no runtime bit twiddling.
+`bmIndCalc`).  Here plain numpy tables are computed once at trace time and
+baked into the compiled program as constants — no runtime bit twiddling.
 
-State convention (chosen TPU-first; differs from the reference's internal
-shift-register layout but produces the identical code / identical decoded
-bits):
+State convention (differs from the reference's internal shift-register
+layout but produces the identical code / identical decoded bits):
 
   state sigma_t = sum_{i=0..5} b_{t-i} << i        (newest input bit at LSB)
 
 With this convention the two trellis predecessors of state ``s`` are
 ``(s >> 1)`` and ``(s >> 1) + 32`` — i.e. the gathered predecessor-metric
 vectors are simple pairwise row repeats of the lower/upper half of the state
-axis.  This replaces the reference's `__shfl_xor_sync` butterfly network and
-its 6-cycle shuffle-exchange layout (viterbiACS.cuh:418-448, 461-480) with
-two static slice+repeat ops that the TPU vector unit executes as register
-moves.
+axis.  In the XLA core this replaces the reference's `__shfl_xor_sync`
+butterfly network (viterbiACS.cuh:418-448, 461-480) with two static
+slice+repeat ops; the Hopper kernel keeps the shuffle butterfly
+(csrc/viterbi_hopper.cu).
 """
 
 from __future__ import annotations

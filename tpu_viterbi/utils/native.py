@@ -6,7 +6,7 @@ equivalents: BER accounting (used by utils/bits.count_bit_errors whenever
 the library builds; NumPy fallback otherwise) and host-IO quantize/pack +
 unpack for callers ingesting host-side sample streams (the simulation chain
 itself quantizes on device — chain/quantize.py).  The shared library is
-built once on demand with g++ -O3 and cached next to the source.
+built once on demand with g++ -O3 into <repo>/build/ (ignored by git).
 """
 
 from __future__ import annotations
@@ -24,23 +24,27 @@ _LIB = None
 _TRIED = False
 
 
-def _csrc_dir() -> str:
-    return os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), "csrc")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
-    src = os.path.join(_csrc_dir(), "host_ops.cpp")
-    out = os.path.join(_csrc_dir(), "libviterbi_host.so")
+    src = os.path.join(_REPO, "csrc", "host_ops.cpp")
+    out = os.path.join(_REPO, "build", "libviterbi_host.so")
     if not os.path.exists(src):
         return None
     if (not os.path.exists(out)
             or os.path.getmtime(out) < os.path.getmtime(src)):
+        # build under a private name, then rename: concurrent builders
+        # (test workers) never load a half-written library
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", src, "-o", out]
+               "-std=c++17", src, "-o", tmp]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        except Exception:
+            os.replace(tmp, out)
+        except (OSError, subprocess.SubprocessError):
             return None
     try:
         lib = ctypes.CDLL(out)
